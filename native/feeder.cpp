@@ -9,7 +9,7 @@
 //   - per-cell 128-sample OFDM symbol window extraction at
 //     frame_timing + target_cap_start_time with cyclic-prefix skipping.
 //
-// The Python SampleFeeder (lte_cell_scanner_tpu/tracker/producer.py) is the
+// The Python SampleFeeder (lte_cell_scanner/tracker/producer.py) is the
 // behavioral reference; tests/test_native_feeder.py asserts equivalence.
 //
 // Build: see native/Makefile (g++ -O2 -shared -fPIC).

@@ -4,7 +4,7 @@ function."""
 import numpy as np
 import jax.numpy as jnp
 
-from lte_cell_scanner_tpu.tracker.batch_frontend import (
+from lte_cell_scanner.tracker.batch_frontend import (
     ac_fd_batch,
     bulk_phase_offsets,
     filter_ce_batch,
@@ -16,8 +16,8 @@ from lte_cell_scanner_tpu.tracker.batch_frontend import (
     to_ri,
     toe_stats_batch,
 )
-from lte_cell_scanner_tpu.tracker.cell_tracker import CellTracker, _RawCE
-from lte_cell_scanner_tpu.tracker.state import (
+from lte_cell_scanner.tracker.cell_tracker import CellTracker, _RawCE
+from lte_cell_scanner.tracker.state import (
     GlobalState,
     SymbolPDU,
     TrackedCell,
@@ -156,8 +156,8 @@ def test_filter_foe_toe_ac_parity():
 
 
 def test_sync_meas_parity():
-    from lte_cell_scanner_tpu.models.pss import pss_fd
-    from lte_cell_scanner_tpu.models.sss import sss_fd
+    from lte_cell_scanner.models.pss import pss_fd
+    from lte_cell_scanner.models.sss import sss_fd
 
     tr, state, cell = _tracker()
     n1, n2 = divmod(cell.n_id_cell, 3)

@@ -56,7 +56,7 @@ def mock_rtlsdr(monkeypatch):
 
 
 def test_usb_agc_flush_and_capture(mock_rtlsdr):
-    from lte_cell_scanner_tpu.io.capture import CaptureSource
+    from lte_cell_scanner.io.capture import CaptureSource
 
     src = CaptureSource("rtlsdr", correction=1.000012)
     sdr = src._sdr
@@ -77,7 +77,7 @@ def test_usb_agc_flush_and_capture(mock_rtlsdr):
 
 
 def test_usb_tuner_retry(mock_rtlsdr):
-    from lte_cell_scanner_tpu.io.capture import CaptureSource
+    from lte_cell_scanner.io.capture import CaptureSource
 
     _MockRtlSdr.fail_sets = 3      # three transient failures, then OK
     src = CaptureSource("rtlsdr")
@@ -93,8 +93,8 @@ def test_usb_tuner_retry(mock_rtlsdr):
 
 
 def test_usb_e4000_fc_programmed(mock_rtlsdr):
-    from lte_cell_scanner_tpu.io.capture import (CaptureSource,
-                                                 compute_fc_programmed)
+    from lte_cell_scanner.io.capture import (CaptureSource,
+                                             compute_fc_programmed)
 
     src = CaptureSource("rtlsdr", tuner="E4000")
     src._agc_settled = True        # skip the flush for speed

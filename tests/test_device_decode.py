@@ -10,17 +10,17 @@ import dataclasses
 import numpy as np
 import pytest
 
-from lte_cell_scanner_tpu.constants import DS_COMB_ARM, THRESH2_N_SIGMA
-from lte_cell_scanner_tpu.models.rs import RSDL
-from lte_cell_scanner_tpu.ops.mib_jax import decode_mib_batch
-from lte_cell_scanner_tpu.ops.peak import peak_search
-from lte_cell_scanner_tpu.ops.pbch import decode_mib
-from lte_cell_scanner_tpu.ops.sync import pss_sss_foe, sss_detect
-from lte_cell_scanner_tpu.ops.sync_jax import sss_foe_batch
-from lte_cell_scanner_tpu.ops.tfg import extract_tfg, tfoec
-from lte_cell_scanner_tpu.ops.xcorr import xcorr_pss
-from lte_cell_scanner_tpu.search.cell_search import (cell_search,
-                                                     detection_threshold)
+from lte_cell_scanner.constants import DS_COMB_ARM, THRESH2_N_SIGMA
+from lte_cell_scanner.models.rs import RSDL
+from lte_cell_scanner.ops.mib_jax import decode_mib_batch
+from lte_cell_scanner.ops.peak import peak_search
+from lte_cell_scanner.ops.pbch import decode_mib
+from lte_cell_scanner.ops.sync import pss_sss_foe, sss_detect
+from lte_cell_scanner.ops.sync_jax import sss_foe_batch
+from lte_cell_scanner.ops.tfg import extract_tfg, tfoec
+from lte_cell_scanner.ops.xcorr import xcorr_pss
+from lte_cell_scanner.search.cell_search import (cell_search,
+                                                 detection_threshold)
 
 
 @pytest.fixture(scope="module")
@@ -80,7 +80,7 @@ def test_mib_deferred_fetch_identical(real_peaks):
     """decode_mib_batch(defer=True) + finish_mib_batch must equal the
     direct call (the pipelined sweep collects MIB results one batch
     later to overlap the fetch round trip)."""
-    from lte_cell_scanner_tpu.ops.mib_jax import finish_mib_batch
+    from lte_cell_scanner.ops.mib_jax import finish_mib_batch
 
     cap, fc, peaks = real_peaks
     synced = sss_foe_batch(peaks, cap, fc, fc, 1.92e6, THRESH2_N_SIGMA)
@@ -94,52 +94,13 @@ def test_mib_deferred_fetch_identical(real_peaks):
         [], cap, fc, fc, 1.92e6, defer=True)) == []
 
 
-def test_mib_pallas_fused_extract_matches_xla(real_peaks):
-    """The Pallas-fused extract_tfg (ops/fd_demod_pallas via
-    _build_mib_device(use_pallas=True)) decodes the same cells as the
-    XLA formulation — same MIB fields, same residual FOE to f32 noise
-    (on TPU the two are bit-identical: same ops, same order, same MXU
-    dots; interpret mode on CPU differs only in scalar math)."""
-    import jax.numpy as jnp
-
-    from lte_cell_scanner_tpu.ops.mib_jax import (MibPending,
-                                                  _dev_cell_tables,
-                                                  _mib_device,
-                                                  finish_mib_batch,
-                                                  mib_plan)
-
-    cap, fc, peaks = real_peaks
-    synced = sss_foe_batch(peaks, cap, fc, fc, 1.92e6, THRESH2_N_SIGMA)
-    alive = [c for c in synced if c.n_id_1 >= 0]
-    assert alive
-    plan = mib_plan(alive, len(cap), fc, fc, 1.92e6)
-    cap_dev = jnp.asarray(
-        np.stack([cap.real, cap.imag], -1).astype(np.float32))
-    from lte_cell_scanner_tpu.ops.mib_jax import _pack_plan
-
-    rs, sh, sc = _dev_cell_tables(alive[0].cp_type)
-    plan_u8, plan_f32 = _pack_plan(plan)
-    args = (cap_dev, plan_u8, plan_f32, rs, sh, sc)
-    out_x = _mib_device(plan.n_symb_dl, plan.n_ofdm, plan.m_bit)(*args)
-    out_p = _mib_device(plan.n_symb_dl, plan.n_ofdm, plan.m_bit,
-                        use_pallas=True, interpret=True)(*args)
-    cells_x = finish_mib_batch(MibPending(out_x, plan, list(alive)))
-    cells_p = finish_mib_batch(MibPending(out_p, plan, list(alive)))
-    assert len(cells_p) == len(cells_x)
-    for a, b in zip(cells_x, cells_p):
-        assert a.n_rb_dl == b.n_rb_dl == 50
-        assert (a.n_ports, a.sfn, a.phich_duration, a.phich_resource) \
-            == (b.n_ports, b.sfn, b.phich_duration, b.phich_resource)
-        assert abs(a.freq_superfine - b.freq_superfine) < 0.5
-
-
 def test_hex_interp_tabs_match_host():
     """The device hex-interpolator tables (mib_jax._hex_interp_tabs)
     reproduce the host Delaunay interpolator (chanest.ce_interp_hex,
     reference src/searcher.cpp:1223-1362) EXACTLY at the consumed rows,
     for both CP geometries, both port classes and all 6 shift configs."""
-    from lte_cell_scanner_tpu.ops.chanest import ce_interp_hex
-    from lte_cell_scanner_tpu.ops.mib_jax import _hex_interp_tabs
+    from lte_cell_scanner.ops.chanest import ce_interp_hex
+    from lte_cell_scanner.ops.mib_jax import _hex_interp_tabs
 
     rng = np.random.default_rng(0)
     for n_symb_dl in (7, 6):
@@ -194,9 +155,9 @@ def test_mib_plan_link_compression(real_peaks):
     lateness/phase stay within half an LSB of the host f64 values, and
     the device-resident 504-cell tables match the per-cell host tables
     row for row."""
-    from lte_cell_scanner_tpu.ops.mib_jax import (_all_cell_tables,
-                                                  _cell_tables, mib_plan)
-    from lte_cell_scanner_tpu.ops.tfg import symbol_timestamps
+    from lte_cell_scanner.ops.mib_jax import (_all_cell_tables,
+                                              _cell_tables, mib_plan)
+    from lte_cell_scanner.ops.tfg import symbol_timestamps
 
     cap, fc, peaks = real_peaks
     synced = sss_foe_batch(peaks, cap, fc, fc, 1.92e6, THRESH2_N_SIGMA)
@@ -234,9 +195,9 @@ def test_mib_plan_link_compression_extended_cp():
     the u8 delta encoding, across a spread of crystal errors and frame
     phases (synthetic cells — the encoder only needs the timing
     fields)."""
-    from lte_cell_scanner_tpu.models.cell import Cell
-    from lte_cell_scanner_tpu.ops.mib_jax import mib_plan
-    from lte_cell_scanner_tpu.ops.tfg import symbol_timestamps
+    from lte_cell_scanner.models.cell import Cell
+    from lte_cell_scanner.ops.mib_jax import mib_plan
+    from lte_cell_scanner.ops.tfg import symbol_timestamps
 
     cells = [Cell(fc_requested=739e6, fc_programmed=739e6,
                   fs_programmed=1.92e6, n_id_2=i % 3, n_id_1=40 * i,
@@ -276,7 +237,7 @@ def test_e2e_device_backend(capbuf_0000):
 def test_device_decode_extended_cp():
     """Extended-CP geometry (732-symbol grid, 1728-bit PBCH) decodes on
     the device path."""
-    from lte_cell_scanner_tpu.io.simulator import synthetic_capture
+    from lte_cell_scanner.io.simulator import synthetic_capture
 
     cap = synthetic_capture(n_id_1=30, n_id_2=2, cp_type="extended",
                             snr_db=20.0, freq_offset=2e3, n_rb_dl=25,
@@ -295,7 +256,7 @@ def test_aligned_wins_blend_identity():
     including first/last/row-straddling windows."""
     import jax.numpy as jnp
 
-    from lte_cell_scanner_tpu.ops.sync_jax import _aligned_wins
+    from lte_cell_scanner.ops.sync_jax import _aligned_wins
 
     rng = np.random.default_rng(0)
     n = 128 * 40
@@ -321,9 +282,9 @@ def test_device_sync_long_capture_uses_all_reps():
     """Captures longer than 80 ms grow the device plan's repetition axis
     (the host path combines EVERY repetition; a fixed 16-slot table
     would silently truncate and break backend parity)."""
-    from lte_cell_scanner_tpu.io.simulator import synthetic_capture
-    from lte_cell_scanner_tpu.ops.sync_jax import _n_rep_for, sync_plan
-    from lte_cell_scanner_tpu.ops.xcorr import xcorr_pss
+    from lte_cell_scanner.io.simulator import synthetic_capture
+    from lte_cell_scanner.ops.sync_jax import _n_rep_for, sync_plan
+    from lte_cell_scanner.ops.xcorr import xcorr_pss
 
     cap = synthetic_capture(n_id_1=12, n_id_2=1, snr_db=10.0,
                             freq_offset=4e3, n_subframes=120, seed=2)
@@ -363,8 +324,8 @@ def test_device_full_tfg_matches_host(real_peaks):
     src/searcher.cpp:852-935) matches the f64 host path (ops/tfg.py) to
     f32 + i16-phase-quantization tolerance — closing the compact-grid
     divergence for device consumers beyond the MIB chain."""
-    from lte_cell_scanner_tpu.ops.mib_jax import extract_tfg_batch
-    from lte_cell_scanner_tpu.ops.tfg import extract_tfg
+    from lte_cell_scanner.ops.mib_jax import extract_tfg_batch
+    from lte_cell_scanner.ops.tfg import extract_tfg
 
     cap, fc, peaks = real_peaks
     synced = sss_foe_batch(peaks, cap, fc, fc, 1.92e6, THRESH2_N_SIGMA)

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from lte_cell_scanner_tpu.constants import FS_SEARCH
-from lte_cell_scanner_tpu.io.frontend import (
+from lte_cell_scanner.constants import FS_SEARCH
+from lte_cell_scanner.io.frontend import (
     PASSBAND_HZ,
     decimate_capture,
     design_decimation_fir,
@@ -55,9 +55,9 @@ def test_jax_backend_matches_numpy():
 
 def test_wideband_capture_to_cell_search():
     """A cell recorded at 15.36 Msps decimates to 1.92 Msps and decodes."""
-    from lte_cell_scanner_tpu.io.simulator import synthetic_capture
-    from lte_cell_scanner_tpu.search.cell_search import cell_search
-    from lte_cell_scanner_tpu.utils.dsp import interpft
+    from lte_cell_scanner.io.simulator import synthetic_capture
+    from lte_cell_scanner.search.cell_search import cell_search
+    from lte_cell_scanner.utils.dsp import interpft
 
     base = synthetic_capture(n_id_1=90, n_id_2=1, snr_db=20,
                              freq_offset=3e3, n_subframes=90, seed=4)

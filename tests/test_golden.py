@@ -10,20 +10,20 @@ import os
 import numpy as np
 import pytest
 
-from lte_cell_scanner_tpu.models.cell import Cell
-from lte_cell_scanner_tpu.ops.peak import peak_search
-from lte_cell_scanner_tpu.ops.sync import pss_sss_foe, sss_detect
-from lte_cell_scanner_tpu.ops.tfg import extract_tfg, tfoec
-from lte_cell_scanner_tpu.ops.pbch import decode_mib
-from lte_cell_scanner_tpu.models.rs import RSDL
-from tests.conftest import reference_path
+from lte_cell_scanner.models.cell import Cell
+from lte_cell_scanner.ops.peak import peak_search
+from lte_cell_scanner.ops.sync import pss_sss_foe, sss_detect
+from lte_cell_scanner.ops.tfg import extract_tfg, tfoec
+from lte_cell_scanner.ops.pbch import decode_mib
+from lte_cell_scanner.models.rs import RSDL
+from conftest import reference_path
 
 
 def _fixture(name):
     path = reference_path("test", name)
     if not os.path.exists(path):
         pytest.skip(f"fixture {name} not available")
-    from lte_cell_scanner_tpu.io.itfile import load_it
+    from lte_cell_scanner.io.itfile import load_it
 
     return load_it(path)
 
@@ -156,7 +156,7 @@ def test_e2e_capbuf_0000(capbuf_0000):
     reference: src/CMakeLists.txt:31-35 (expects 'cell ID: 271' in the
     CellSearch output on this capture) and test/test_tfg.cpp:100 (50 RB).
     """
-    from lte_cell_scanner_tpu.search import cell_search, generate_search_sets
+    from lte_cell_scanner.search import cell_search, generate_search_sets
 
     cap, fc = capbuf_0000
     _, f_search_set = generate_search_sets(fc, fc, 120)

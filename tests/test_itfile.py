@@ -5,8 +5,8 @@ import os
 import numpy as np
 import pytest
 
-from lte_cell_scanner_tpu.io.itfile import load_it, save_it
-from tests.conftest import reference_path
+from lte_cell_scanner.io.itfile import load_it, save_it
+from conftest import reference_path
 
 
 def test_load_capbuf():
@@ -58,7 +58,7 @@ def test_roundtrip(tmp_path):
 def test_save_capbuf_fc_int32_interop(tmp_path):
     """Recordings store fc as int32 (reference-compatible,
     src/capbuf.cpp:187-197); >2^31 carriers fall back to float64."""
-    from lte_cell_scanner_tpu.io.capture import load_capbuf, save_capbuf
+    from lte_cell_scanner.io.capture import load_capbuf, save_capbuf
 
     cap = (np.arange(64) - 32) / 128 + 1j * (np.arange(64) - 16) / 128
     save_capbuf(str(tmp_path), 0, cap, 739e6, fc_programmed=739000058.0)

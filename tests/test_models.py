@@ -3,15 +3,15 @@
 import numpy as np
 import pytest
 
-from lte_cell_scanner_tpu.models.pn import lte_pn, lte_pn_batch
-from lte_cell_scanner_tpu.models.pss import pss_fd, pss_td, pss_td_all
-from lte_cell_scanner_tpu.models.sss import sss_fd
-from lte_cell_scanner_tpu.models.rs import RSDL
-from lte_cell_scanner_tpu.models.crc import lte_calc_crc
-from lte_cell_scanner_tpu.models.convcode import lte_conv_encode, lte_conv_decode
-from lte_cell_scanner_tpu.models.ratematch import lte_conv_ratematch, lte_conv_deratematch
-from lte_cell_scanner_tpu.models.modulation import lte_modulate, lte_demodulate
-from lte_cell_scanner_tpu.utils.dsp import sigpower
+from lte_cell_scanner.models.pn import lte_pn, lte_pn_batch
+from lte_cell_scanner.models.pss import pss_fd, pss_td, pss_td_all
+from lte_cell_scanner.models.sss import sss_fd
+from lte_cell_scanner.models.rs import RSDL
+from lte_cell_scanner.models.crc import lte_calc_crc
+from lte_cell_scanner.models.convcode import lte_conv_encode, lte_conv_decode
+from lte_cell_scanner.models.ratematch import lte_conv_ratematch, lte_conv_deratematch
+from lte_cell_scanner.models.modulation import lte_modulate, lte_demodulate
+from lte_cell_scanner.utils.dsp import sigpower
 
 
 def _pn_direct(c_init, length):
@@ -158,7 +158,7 @@ def test_ratematch_counts():
 def test_modulation_roundtrip():
     rng = np.random.default_rng(5)
     for mod in ("qpsk", "qam16", "qam64"):
-        from lte_cell_scanner_tpu.models.modulation import bits_per_symbol
+        from lte_cell_scanner.models.modulation import bits_per_symbol
         bits = rng.integers(0, 2, 8 * 6).astype(np.uint8)
         syms = lte_modulate(bits, mod)
         assert abs(sigpower(syms)) < 2.0  # unit average over full constellation
@@ -195,9 +195,9 @@ def test_mib_chain_end_to_end():
 
 
 def test_device_viterbi_matches_host():
-    from lte_cell_scanner_tpu.models.convcode import (lte_conv_decode,
-                                                      lte_conv_encode)
-    from lte_cell_scanner_tpu.models.convcode_jax import lte_conv_decode_batch
+    from lte_cell_scanner.models.convcode import (lte_conv_decode,
+                                                  lte_conv_encode)
+    from lte_cell_scanner.models.convcode_jax import lte_conv_decode_batch
 
     rng = np.random.default_rng(11)
     B, n = 12, 40
@@ -214,7 +214,7 @@ def test_device_viterbi_matches_host():
 
 
 def test_matlab_compat_helpers():
-    from lte_cell_scanner_tpu.utils.dsp import and_reduce, diff, flatten, last
+    from lte_cell_scanner.utils.dsp import and_reduce, diff, flatten, last
 
     np.testing.assert_array_equal(diff([1, 4, 9]), [3, 5])
     assert and_reduce([True, True]) and not and_reduce([True, False])
@@ -223,24 +223,22 @@ def test_matlab_compat_helpers():
         flatten([[np.arange(2), np.arange(2) + 2]]), np.arange(4))
 
 
-def test_pallas_viterbi_matches_host():
-    """The VMEM-resident Pallas trellis kernel (interpret mode on CPU)
-    is bit-identical to the host tail-biting decoder, including the
-    batch-pad path (150 -> 256 lanes)."""
-    from lte_cell_scanner_tpu.models.convcode import (lte_conv_decode,
-                                                      lte_conv_encode)
-    from lte_cell_scanner_tpu.models.viterbi_pallas import (
-        lte_conv_decode_pallas)
+@pytest.mark.parametrize("batch", [1, 150])
+def test_device_viterbi_batch_padding(batch):
+    """Host batches are zero-padded to a power of two (>= 128 rows) so
+    the tracker's varying batch sizes share a few compiled programs;
+    the padding must not leak into the decodes, and NumPy in gives
+    NumPy out of the original length."""
+    from lte_cell_scanner.models.convcode import (lte_conv_decode,
+                                                  lte_conv_encode)
+    from lte_cell_scanner.models.convcode_jax import lte_conv_decode_batch
 
     rng = np.random.default_rng(17)
-    B, n = 150, 40
-    bits = rng.integers(0, 2, (B, n)).astype(np.uint8)
-    llrs = []
-    for b in range(B):
-        d = lte_conv_encode(bits[b]).astype(np.float64)
-        y = (1.0 - 2.0 * d) + rng.standard_normal(d.shape)  # 0 dB AWGN
-        llrs.append(2 * y)
-    llrs = np.stack(llrs).astype(np.float32)
-    dev = np.asarray(lte_conv_decode_pallas(llrs, interpret=True))
-    for b in range(B):
+    bits = rng.integers(0, 2, (batch, 40)).astype(np.uint8)
+    llrs = np.stack([2 * ((1.0 - 2.0 * lte_conv_encode(b).astype(
+        np.float64)) + rng.standard_normal((3, 40))) for b in bits])
+    llrs = llrs.astype(np.float32)
+    dev = lte_conv_decode_batch(llrs)
+    assert isinstance(dev, np.ndarray) and dev.shape == (batch, 40)
+    for b in range(batch):
         np.testing.assert_array_equal(dev[b], lte_conv_decode(llrs[b]))

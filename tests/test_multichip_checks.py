@@ -1,12 +1,12 @@
-"""Multi-device parity of the production entry points (VERDICT r4
-item 5): the pipelined sweep driver and the batched tracker engine on an
-8-device mesh vs the single-device path. These are the same checks the
-driver's dryrun_multichip runs (parallel/multichip_checks.py); the
-conftest's 8 virtual CPU devices stand in for an 8-chip slice."""
+"""Multi-device parity of the production entry points: the pipelined
+sweep driver and the batched tracker engine on an 8-device mesh vs the
+single-device path. These are the same checks dryrun_multichip runs
+(parallel/multichip_checks.py); the conftest's 8 virtual CPU devices
+stand in for a multi-GPU host."""
 
 
 def test_pipelined_sweep_multidevice():
-    from lte_cell_scanner_tpu.parallel.multichip_checks import (
+    from lte_cell_scanner.parallel.multichip_checks import (
         check_pipelined_sweep_multidevice)
 
     n = check_pipelined_sweep_multidevice(8)
@@ -14,7 +14,7 @@ def test_pipelined_sweep_multidevice():
 
 
 def test_tracker_cells_sharded():
-    from lte_cell_scanner_tpu.parallel.multichip_checks import (
+    from lte_cell_scanner.parallel.multichip_checks import (
         check_tracker_cells_sharded)
 
     res = check_tracker_cells_sharded(8, cells=16)

@@ -5,9 +5,9 @@ import shutil
 import numpy as np
 import pytest
 
-from lte_cell_scanner_tpu.io.raw import iq_to_bytes
-from lte_cell_scanner_tpu.tracker.producer import SampleFeeder
-from lte_cell_scanner_tpu.tracker.state import GlobalState, TrackedCell
+from lte_cell_scanner.io.raw import iq_to_bytes
+from lte_cell_scanner.tracker.producer import SampleFeeder
+from lte_cell_scanner.tracker.state import GlobalState, TrackedCell
 
 pytestmark = pytest.mark.skipif(shutil.which("make") is None,
                                 reason="no native toolchain")
@@ -25,13 +25,13 @@ def _mk_cell():
 
 
 def test_native_matches_python():
-    from lte_cell_scanner_tpu.tracker.native_feeder import NativeSampleFeeder
+    from lte_cell_scanner.tracker.native_feeder import NativeSampleFeeder
 
     rng = np.random.default_rng(0)
     sig = (rng.standard_normal(200000) + 1j * rng.standard_normal(200000)) * 0.2
     raw = iq_to_bytes(sig)
     # Quantized view (what both feeders actually see after uint8).
-    from lte_cell_scanner_tpu.io.raw import bytes_to_iq
+    from lte_cell_scanner.io.raw import bytes_to_iq
 
     sig_q = bytes_to_iq(raw)
 
@@ -66,10 +66,10 @@ def test_native_matches_python():
 
 def test_native_tracker_end_to_end():
     """Swap the native feeder into the runtime: the cell must still track."""
-    from lte_cell_scanner_tpu.io.simulator import synthetic_capture
-    from lte_cell_scanner_tpu.tracker import LTETracker
-    from lte_cell_scanner_tpu.tracker.native_feeder import NativeSampleFeeder
-    from lte_cell_scanner_tpu.tracker.runtime import playback_source
+    from lte_cell_scanner.io.simulator import synthetic_capture
+    from lte_cell_scanner.tracker import LTETracker
+    from lte_cell_scanner.tracker.native_feeder import NativeSampleFeeder
+    from lte_cell_scanner.tracker.runtime import playback_source
 
     sig = synthetic_capture(n_id_1=90, n_id_2=1, snr_db=15,
                             freq_offset=4e3, n_subframes=300, seed=5)
@@ -88,8 +88,8 @@ def test_native_tracker_end_to_end():
 def test_native_descriptor_mode_matches_python():
     """Descriptor-mode PDUs (stream indices, no sample copies) agree
     field-for-field between the C++ and Python feeders."""
-    from lte_cell_scanner_tpu.io.raw import bytes_to_iq
-    from lte_cell_scanner_tpu.tracker.native_feeder import NativeSampleFeeder
+    from lte_cell_scanner.io.raw import bytes_to_iq
+    from lte_cell_scanner.tracker.native_feeder import NativeSampleFeeder
 
     rng = np.random.default_rng(3)
     sig = (rng.standard_normal(150000)
@@ -116,9 +116,9 @@ def test_native_descriptor_mode_matches_python():
 
 def test_batch_tracker_with_native_feeder():
     """Full batched tracker with the C++ feeder front end."""
-    from lte_cell_scanner_tpu.io.simulator import synthetic_capture
-    from lte_cell_scanner_tpu.tracker import LTETracker
-    from lte_cell_scanner_tpu.tracker.runtime import playback_source
+    from lte_cell_scanner.io.simulator import synthetic_capture
+    from lte_cell_scanner.tracker import LTETracker
+    from lte_cell_scanner.tracker.runtime import playback_source
 
     sig = synthetic_capture(n_id_1=90, n_id_2=1, snr_db=15,
                             freq_offset=4e3, n_subframes=400, seed=5)

@@ -22,10 +22,10 @@ def test_pipelined_sweep_matches_whole_stack(capbuf_0000):
     """3-fc sweep (one padded chunk), both defer_sync modes, vs the
     single whole-stack dispatch: per-capture cell lists must match
     field-for-field."""
-    from lte_cell_scanner_tpu.io.simulator import synthetic_capture
-    from lte_cell_scanner_tpu.parallel.fc_sweep import (
+    from lte_cell_scanner.io.simulator import synthetic_capture
+    from lte_cell_scanner.parallel.fc_sweep import (
         make_cap_mesh, sharded_search_sweep)
-    from lte_cell_scanner_tpu.search.pipeline import pipelined_search_sweep
+    from lte_cell_scanner.search.pipeline import pipelined_search_sweep
 
     cap0, fc0 = capbuf_0000
     cap1 = synthetic_capture(n_id_1=30, n_id_2=0, snr_db=15,
@@ -54,8 +54,8 @@ def test_pipelined_sweep_matches_whole_stack(capbuf_0000):
 
 
 def test_pipelined_sweep_rejects_bad_batch():
-    from lte_cell_scanner_tpu.parallel.fc_sweep import make_cap_mesh
-    from lte_cell_scanner_tpu.search.pipeline import pipelined_search_sweep
+    from lte_cell_scanner.parallel.fc_sweep import make_cap_mesh
+    from lte_cell_scanner.search.pipeline import pipelined_search_sweep
 
     caps = np.zeros((4, 2, 19200), np.uint8) + 127
     with pytest.raises(ValueError, match="not divisible"):
@@ -68,8 +68,8 @@ def test_pipelined_sweep_small_sweep_keeps_shard_multiple():
     rounds UP to a cap-shard multiple instead of inheriting a
     non-divisible B_tot (review finding: batch=32 with 3 captures on a
     2-shard mesh used to die with 'batch=3 not divisible')."""
-    from lte_cell_scanner_tpu.parallel.fc_sweep import make_cap_mesh
-    from lte_cell_scanner_tpu.search.pipeline import pipelined_search_sweep
+    from lte_cell_scanner.parallel.fc_sweep import make_cap_mesh
+    from lte_cell_scanner.search.pipeline import pipelined_search_sweep
 
     caps = np.zeros((3, 2, 19200), np.uint8) + 127   # dead band
     per_cap, dd = pipelined_search_sweep(

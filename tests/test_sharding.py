@@ -4,9 +4,9 @@ import jax
 import numpy as np
 import pytest
 
-from lte_cell_scanner_tpu.ops.xcorr import xcorr_pss
-from lte_cell_scanner_tpu.parallel import make_search_mesh, sharded_xcorr_pss
-from tests.test_xcorr_device import _synthetic_capture
+from lte_cell_scanner.ops.xcorr import xcorr_pss
+from lte_cell_scanner.parallel import make_search_mesh, sharded_xcorr_pss
+from test_xcorr_device import _synthetic_capture
 
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
@@ -35,9 +35,9 @@ def test_sharded_scan_matches_reference(n_seq, n_hyp):
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 def test_sharded_end_to_end_detection(capbuf_0000):
     """Sharded scan on the real capture must find the same peak."""
-    from lte_cell_scanner_tpu.constants import DS_COMB_ARM
-    from lte_cell_scanner_tpu.ops.peak import peak_search
-    from lte_cell_scanner_tpu.search.cell_search import detection_threshold
+    from lte_cell_scanner.constants import DS_COMB_ARM
+    from lte_cell_scanner.ops.peak import peak_search
+    from lte_cell_scanner.search.cell_search import detection_threshold
 
     cap, fc = capbuf_0000
     fset = np.arange(-15, 16) * 5e3
@@ -58,13 +58,13 @@ def test_data_parallel_fc_sweep():
     host path per capture."""
     import numpy as np
 
-    from lte_cell_scanner_tpu.constants import DS_COMB_ARM, THRESH1_N_NINES
-    from lte_cell_scanner_tpu.models.pss import pss_td
-    from lte_cell_scanner_tpu.ops.peak import peak_search
-    from lte_cell_scanner_tpu.ops.xcorr import xcorr_pss
-    from lte_cell_scanner_tpu.parallel.fc_sweep import (make_cap_mesh,
-                                                        sharded_fc_sweep)
-    from lte_cell_scanner_tpu.search.cell_search import detection_threshold
+    from lte_cell_scanner.constants import DS_COMB_ARM, THRESH1_N_NINES
+    from lte_cell_scanner.models.pss import pss_td
+    from lte_cell_scanner.ops.peak import peak_search
+    from lte_cell_scanner.ops.xcorr import xcorr_pss
+    from lte_cell_scanner.parallel.fc_sweep import (make_cap_mesh,
+                                                    sharded_fc_sweep)
+    from lte_cell_scanner.search.cell_search import detection_threshold
 
     rng = np.random.default_rng(9)
     n = 48000
@@ -101,16 +101,16 @@ def test_data_parallel_fc_sweep():
 def test_fc_sweep_truncation_fallback():
     """A capture whose device peak table fills must fall back to the
     unbounded host scan instead of silently truncating (the fused
-    single-capture path already does; VERDICT r1 weak #4)."""
+    single-capture path already does)."""
     import numpy as np
 
-    from lte_cell_scanner_tpu.constants import DS_COMB_ARM, THRESH1_N_NINES
-    from lte_cell_scanner_tpu.models.pss import pss_td
-    from lte_cell_scanner_tpu.ops.peak import peak_search
-    from lte_cell_scanner_tpu.ops.xcorr import xcorr_pss
-    from lte_cell_scanner_tpu.parallel.fc_sweep import (make_cap_mesh,
-                                                        sharded_fc_sweep)
-    from lte_cell_scanner_tpu.search.cell_search import detection_threshold
+    from lte_cell_scanner.constants import DS_COMB_ARM, THRESH1_N_NINES
+    from lte_cell_scanner.models.pss import pss_td
+    from lte_cell_scanner.ops.peak import peak_search
+    from lte_cell_scanner.ops.xcorr import xcorr_pss
+    from lte_cell_scanner.parallel.fc_sweep import (make_cap_mesh,
+                                                    sharded_fc_sweep)
+    from lte_cell_scanner.search.cell_search import detection_threshold
 
     rng = np.random.default_rng(3)
     n = 48000
@@ -142,11 +142,11 @@ def test_fc_sweep_truncation_fallback():
 def test_sharded_sweep_e2e_mib(capbuf_0000):
     """A 2-fc sweep through the DP sharded scan AND the batched device
     decode must produce the same cell lists (full MIB) as the host path
-    per capture (VERDICT r1 weak #6)."""
-    from lte_cell_scanner_tpu.io.simulator import synthetic_capture
-    from lte_cell_scanner_tpu.parallel.fc_sweep import (make_cap_mesh,
-                                                        sharded_search_sweep)
-    from lte_cell_scanner_tpu.search.cell_search import cell_search
+    per capture."""
+    from lte_cell_scanner.io.simulator import synthetic_capture
+    from lte_cell_scanner.parallel.fc_sweep import (make_cap_mesh,
+                                                    sharded_search_sweep)
+    from lte_cell_scanner.search.cell_search import cell_search
 
     cap0, fc0 = capbuf_0000
     cap1 = synthetic_capture(n_id_1=30, n_id_2=0, snr_db=15,
@@ -171,54 +171,11 @@ def test_sharded_sweep_e2e_mib(capbuf_0000):
     assert {c.n_id_cell() for c in deduped} >= {271, 277, 90}
 
 
-def test_sharded_fc_sweep_pallas_path(capbuf_0000):
-    """The TEA-Pallas DP scan (the TPU production path, interpret-mode
-    here) produces the same peak lists as the XLA core."""
-    from lte_cell_scanner_tpu.parallel.fc_sweep import (make_cap_mesh,
-                                                        sharded_fc_sweep)
-
-    cap0, fc0 = capbuf_0000
-    caps = np.stack([cap0[:48000], cap0[:48000]])
-    fcs = [fc0, fc0 + 100e3]
-    fset = np.arange(-2, 3) * 5e3
-    mesh = make_cap_mesh(2)
-    ref = sharded_fc_sweep(caps, fcs, fset, mesh, use_pallas=False)
-    got = sharded_fc_sweep(caps, fcs, fset, mesh, use_pallas=True)
-    for b in range(2):
-        assert len(got[b]) == len(ref[b]) > 0
-        for g, r in zip(got[b], ref[b]):
-            assert (g.n_id_2, g.ind, g.freq) == (r.n_id_2, r.ind, r.freq)
-            assert abs(g.pss_pow - r.pss_pow) < 1e-4 * r.pss_pow
-
-
-def test_sharded_fc_sweep_jit_cache_grid_change(capbuf_0000):
-    """Regression: the cached sweep program must not be reused across
-    search grids whose fold-misalignment range (s0/s_col) differs —
-    an early cache key omitted them and returned peaks shifted by the
-    s0 delta after a grid change in the same process."""
-    from lte_cell_scanner_tpu.parallel.fc_sweep import (make_cap_mesh,
-                                                        sharded_fc_sweep)
-
-    cap0, fc0 = capbuf_0000
-    caps = np.stack([cap0[:48000]])
-    mesh = make_cap_mesh(1)
-    neg = np.array([-50e3, -45e3])
-    pos = np.array([45e3, 50e3])
-    # Fresh-process expectation for the positive grid, then the same
-    # sweep after the negative grid has populated the caches.
-    want = sharded_fc_sweep(caps, [fc0], pos, mesh, use_pallas=True)
-    sharded_fc_sweep(caps, [fc0], neg, mesh, use_pallas=True)
-    got = sharded_fc_sweep(caps, [fc0], pos, mesh, use_pallas=True)
-    assert [(c.n_id_2, c.ind) for c in got[0]] == \
-        [(c.n_id_2, c.ind) for c in want[0]]
-    assert len(want[0]) > 0
-
-
 def test_sharded_sweep_uint8_radio_bytes(capbuf_0000):
     """uint8 (B, 2, n) radio-byte captures run the whole sharded sweep
     (scan + full MIB decode) with on-device conversion."""
-    from lte_cell_scanner_tpu.parallel.fc_sweep import (make_cap_mesh,
-                                                        sharded_search_sweep)
+    from lte_cell_scanner.parallel.fc_sweep import (make_cap_mesh,
+                                                    sharded_search_sweep)
 
     cap0, fc0 = capbuf_0000
     planes = np.stack([cap0.real, cap0.imag])
@@ -237,9 +194,9 @@ def test_sharded_sweep_fc_programmed_and_duplicate_carriers(capbuf_0000):
     """fc_programmed threads through the DP sweep's k_factor arithmetic
     (parity vs the host path given the same tuner model), and duplicate
     carriers in fc_list keep their own per-capture result lists."""
-    from lte_cell_scanner_tpu.parallel.fc_sweep import (make_cap_mesh,
-                                                        sharded_search_sweep)
-    from lte_cell_scanner_tpu.search.cell_search import cell_search
+    from lte_cell_scanner.parallel.fc_sweep import (make_cap_mesh,
+                                                    sharded_search_sweep)
+    from lte_cell_scanner.search.cell_search import cell_search
 
     cap0, fc0 = capbuf_0000
     caps = np.stack([cap0, cap0])
@@ -261,32 +218,52 @@ def test_sharded_sweep_fc_programmed_and_duplicate_carriers(capbuf_0000):
             assert abs(g.freq_superfine - h.freq_superfine) < 0.5
 
 
-def test_sharded_fc_sweep_share_banks(capbuf_0000):
-    """Opt-in bank sharing: raster carriers whose integer fold
-    schedules match reuse one template bank (the sweep's dominant
-    upload). Detection results must match the exact per-fc banks."""
-    from lte_cell_scanner_tpu.parallel.fc_sweep import (
-        _bank_signature, make_cap_mesh, sharded_fc_sweep)
+@pytest.mark.parametrize("kind", ["uint8", "float32", "device"])
+def test_fc_sweep_input_forms_match_host(kind):
+    """The DP scan takes (B, 2, n) uint8 radio bytes, float planes, or a
+    device-resident array (the wideband channelizer's output, the
+    pipelined sweep's chunks) and converts on device; each form gives
+    the host float64 peak list of the same capture."""
+    import jax.numpy as jnp
 
-    cap0, fc0 = capbuf_0000
-    caps = np.stack([cap0[:48000]] * 4)
-    fcs = [fc0 + i * 100e3 for i in range(4)]
+    from lte_cell_scanner.constants import DS_COMB_ARM, THRESH1_N_NINES
+    from lte_cell_scanner.models.pss import pss_td
+    from lte_cell_scanner.ops.peak import peak_search
+    from lte_cell_scanner.parallel.fc_sweep import (_to_complex,
+                                                    make_cap_mesh,
+                                                    sharded_fc_sweep)
+    from lte_cell_scanner.search.cell_search import detection_threshold
+
+    rng = np.random.default_rng(21)
+    n = 48000
     fset = np.arange(-2, 3) * 5e3
-
-    # The raster collapses to ONE shared bank (fold offsets match)
-    # while exact signatures stay distinct (f32 template ulps).
-    shared_sigs = {_bank_signature(fc, fc, fset, 1.92e6, 4, True)[2]
-                   for fc in fcs}
-    exact_sigs = {_bank_signature(fc, fc, fset, 1.92e6, 4, False)[2]
-                  for fc in fcs}
-    assert len(shared_sigs) == 1 and len(exact_sigs) == 4
-
-    mesh = make_cap_mesh(2)
-    ref = sharded_fc_sweep(caps, fcs, fset, mesh, use_pallas=True)
-    got = sharded_fc_sweep(caps, fcs, fset, mesh, use_pallas=True,
-                           share_banks=True)
+    caps = []
     for b in range(4):
-        assert len(got[b]) == len(ref[b]) > 0
-        for g, r in zip(got[b], ref[b]):
-            assert (g.n_id_2, g.ind, g.freq) == (r.n_id_2, r.ind, r.freq)
-            assert abs(g.pss_pow - r.pss_pow) < 1e-4 * r.pss_pow
+        cap = (rng.standard_normal(n) + 1j * rng.standard_normal(n)) * 0.05
+        sh = pss_td(b % 3) * np.exp(
+            1j * 2 * np.pi * (b - 2) * 4e3 * np.arange(137) / 1.92e6)
+        for k in range(400 + 900 * b, n - 137, 9600):
+            cap[k:k + 137] += 0.35 * sh
+        caps.append(cap)
+    planes = np.stack([np.stack([c.real, c.imag]) for c in caps])
+    if kind == "uint8":
+        arg = np.clip(np.round(planes * 128.0 + 127.0), 0,
+                      255).astype(np.uint8)
+    else:
+        arg = planes.astype(np.float32)
+    host_caps = _to_complex(arg)              # what the device sees
+    if kind == "device":
+        arg = jnp.asarray(arg)
+    fcs = [739e6 + b * 100e3 for b in range(4)]
+    got = sharded_fc_sweep(arg, fcs, fset, make_cap_mesh(4))
+    for b in range(4):
+        r = xcorr_pss(host_caps[b], fset, DS_COMB_ARM, fcs[b], fcs[b],
+                      1.92e6, backend="numpy")
+        z = detection_threshold(r.sp_incoherent, r.n_comb_xc, DS_COMB_ARM,
+                                THRESH1_N_NINES)
+        want = peak_search(r.xc_incoherent_collapsed_pow,
+                           r.xc_incoherent_collapsed_frq, z, fset, fcs[b],
+                           fcs[b], r.xc_incoherent_single, DS_COMB_ARM)
+        assert len(got[b]) == len(want) >= 1
+        for a, w in zip(got[b], want):
+            assert (a.n_id_2, a.ind, a.freq) == (w.n_id_2, w.ind, w.freq)

@@ -2,16 +2,16 @@
 
 Mirrors the role of Matlab/pss_search_final.m (randomized cell parameters,
 impaired channel, detection check) but closes the loop through the MIB,
-which the TPU simulator carries and the reference's does not.
+which this simulator carries and the reference's does not.
 """
 
 import numpy as np
 import pytest
 
-from lte_cell_scanner_tpu.io.simulator import (MibConfig, apply_channel,
-                                               create_dl_sig,
-                                               synthetic_capture)
-from lte_cell_scanner_tpu.search import cell_search, dedup
+from lte_cell_scanner.io.simulator import (MibConfig, apply_channel,
+                                           create_dl_sig,
+                                           synthetic_capture)
+from lte_cell_scanner.search import cell_search, dedup
 
 
 def test_signal_structure():
@@ -19,7 +19,7 @@ def test_signal_structure():
                         np.random.default_rng(0))
     assert len(sig) == 19200
     # PSS template correlation must spike at the end of slots 0 and 10.
-    from lte_cell_scanner_tpu.models.pss import pss_td
+    from lte_cell_scanner.models.pss import pss_td
 
     tpl = np.conj(pss_td(2)) / 137
     xc = np.abs([np.dot(tpl, sig[k:k + 137]) for k in range(19000)])
@@ -59,7 +59,7 @@ def test_low_snr_detection():
 
 
 def test_multipath_channel():
-    from lte_cell_scanner_tpu.io.simulator import create_dl_sig
+    from lte_cell_scanner.io.simulator import create_dl_sig
 
     rng = np.random.default_rng(9)
     tx = create_dl_sig("normal", 80, 0, 30, 1, 0.5, rng,
@@ -72,8 +72,8 @@ def test_multipath_channel():
 
 
 def test_capture_roundtrip(tmp_path):
-    from lte_cell_scanner_tpu.io.capture import (CaptureSource, load_capbuf,
-                                                 save_capbuf)
+    from lte_cell_scanner.io.capture import (CaptureSource, load_capbuf,
+                                             save_capbuf)
 
     cap = synthetic_capture(seed=1)[:1000]
     save_capbuf(str(tmp_path), 0, cap, 739e6)
@@ -86,8 +86,8 @@ def test_capture_roundtrip(tmp_path):
 
 
 def test_e4000_pll_model():
-    from lte_cell_scanner_tpu.io.capture import (compute_fc_programmed,
-                                                 fs_programmed_rtl2832)
+    from lte_cell_scanner.io.capture import (compute_fc_programmed,
+                                             fs_programmed_rtl2832)
 
     # The PLL quantizes: programmed frequency is close to but almost never
     # exactly the requested one, and is deterministic.

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from lte_cell_scanner_tpu.io.simulator import synthetic_capture
-from lte_cell_scanner_tpu.tools.rtl_sdr_check import check_capture
+from lte_cell_scanner.io.simulator import synthetic_capture
+from lte_cell_scanner.tools.rtl_sdr_check import check_capture
 
 
 def test_clean_capture_no_drops():
@@ -37,8 +37,8 @@ def test_detects_inserted_samples():
 
 
 def test_debug_dump_roundtrip(tmp_path):
-    from lte_cell_scanner_tpu.io.itfile import load_it
-    from lte_cell_scanner_tpu.utils import debug_dump
+    from lte_cell_scanner.io.itfile import load_it
+    from lte_cell_scanner.utils import debug_dump
 
     debug_dump.clear()
     debug_dump.dump("x", np.arange(5.0))
@@ -51,7 +51,7 @@ def test_debug_dump_roundtrip(tmp_path):
 
 
 def test_noise_bias_closed_form_matches_mc():
-    from lte_cell_scanner_tpu.tools.noise_bias import (
+    from lte_cell_scanner.tools.noise_bias import (
         monte_carlo_factor, residual_noise_factor, smoothed_noise_factor)
 
     res = residual_noise_factor()
@@ -65,7 +65,7 @@ def test_noise_bias_closed_form_matches_mc():
 
 
 def test_pss_ambiguity_shapes_and_peaks():
-    from lte_cell_scanner_tpu.tools.pss_ambiguity import (
+    from lte_cell_scanner.tools.pss_ambiguity import (
         freq_ambiguity, time_ambiguity)
 
     f = np.linspace(-30e3, 30e3, 61)
@@ -90,7 +90,7 @@ def test_pss_ambiguity_shapes_and_peaks():
 
 
 def test_mc_search_harness_clean_trials():
-    from lte_cell_scanner_tpu.tools.mc_search import run_mc
+    from lte_cell_scanner.tools.mc_search import run_mc
 
     stats = run_mc(trials=2, snr_db=15.0, backend="numpy", seed=7,
                    ppm=5.0, verbose=0)
@@ -102,8 +102,8 @@ def test_mc_search_harness_clean_trials():
 
 
 def test_sss_td_contract():
-    from lte_cell_scanner_tpu.models.sss import sss_fd, sss_td
-    from lte_cell_scanner_tpu.utils.dsp import dft
+    from lte_cell_scanner.models.sss import sss_fd, sss_td
+    from lte_cell_scanner.utils.dsp import dft
 
     td = sss_td(23, 1, 10)
     assert td.shape == (137,)
@@ -118,7 +118,7 @@ def test_sss_td_contract():
 def test_stage_timer_report():
     import time
 
-    from lte_cell_scanner_tpu.utils.profiling import StageTimer
+    from lte_cell_scanner.utils.profiling import StageTimer
 
     timer = StageTimer()
     with timer("scan", items=1000):

@@ -10,9 +10,9 @@ import itertools
 import numpy as np
 import pytest
 
-from lte_cell_scanner_tpu.io.simulator import synthetic_capture
-from lte_cell_scanner_tpu.tracker import LTETracker
-from lte_cell_scanner_tpu.tracker.runtime import playback_source
+from lte_cell_scanner.io.simulator import synthetic_capture
+from lte_cell_scanner.tracker import LTETracker
+from lte_cell_scanner.tracker.runtime import playback_source
 
 
 @pytest.fixture(scope="module")
@@ -125,7 +125,7 @@ def test_overload_drops_seconds(sim_signal):
     # Simulate a backlog: stuff the fifo beyond 1.5 s of symbols.
     pdu = cell.fifo[-1] if cell.fifo else None
     if pdu is None:
-        from lte_cell_scanner_tpu.tracker.state import SymbolPDU
+        from lte_cell_scanner.tracker.state import SymbolPDU
 
         pdu = SymbolPDU(np.zeros(128, dtype=complex), 0, 0, 0.0,
                         4000.0, cell.frame_timing)
@@ -141,8 +141,8 @@ def test_debug_globals_flags():
     """The reference's hidden --g1..--g9 scratch globals
     (src/LTE-Tracker.cpp:52-60): parsed, landed in GlobalState.debug_g,
     surfaced in the expert status view."""
-    from lte_cell_scanner_tpu.tracker.cli import build_parser
-    from lte_cell_scanner_tpu.tracker.display import render_status
+    from lte_cell_scanner.tracker.cli import build_parser
+    from lte_cell_scanner.tracker.display import render_status
 
     args = build_parser().parse_args(
         ["-f", "739e6", "--simulate", "--g2", "1.5", "--g9", "-3"])
@@ -157,7 +157,7 @@ def test_debug_globals_flags():
 
 def test_curses_display_renderer(sim_signal):
     """The interactive UI renderer is a pure function of tracker state."""
-    from lte_cell_scanner_tpu.tracker.curses_display import (
+    from lte_cell_scanner.tracker.curses_display import (
         UIState, VIEWS, handle_key, render_frame)
 
     trk = LTETracker(739e6, initial_freq_offset=4000.0)
@@ -205,8 +205,8 @@ def test_curses_display_renderer(sim_signal):
 def test_plot_trace_degenerate_range():
     """A length-1 trace (x_max == x_min, e.g. the curses ac_td view's
     (n-1)*0.0005 upper bound at n=1) must render, not divide by zero
-    (ADVICE r4: display.py x_scale/y_scale guards)."""
-    from lte_cell_scanner_tpu.tracker.display import plot_trace
+    (display.py x_scale/y_scale guards)."""
+    from lte_cell_scanner.tracker.display import plot_trace
 
     out = plot_trace([0.5], x_min=0.0, x_max=0.0, x_tick=1.0,
                      y_min=0.0, y_max=1.0, y_tick=0.5)

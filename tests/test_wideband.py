@@ -7,11 +7,11 @@ yield both through the channelizer + DP sharded sweep.
 
 import numpy as np
 
-from lte_cell_scanner_tpu.constants import FS_SEARCH
-from lte_cell_scanner_tpu.io.simulator import synthetic_capture
-from lte_cell_scanner_tpu.search.wideband import (wideband_carriers,
-                                                  wideband_search_sweep)
-from lte_cell_scanner_tpu.utils.dsp import interpft
+from lte_cell_scanner.constants import FS_SEARCH
+from lte_cell_scanner.io.simulator import synthetic_capture
+from lte_cell_scanner.search.wideband import (wideband_carriers,
+                                              wideband_search_sweep)
+from lte_cell_scanner.utils.dsp import interpft
 
 
 def _wide_two_cells(decim=8, f_a=2.0e6, f_b=-1.5e6, seed=9):
@@ -62,8 +62,8 @@ def test_wideband_two_cell_sweep():
 def test_wideband_cli(tmp_path, capsys):
     """--wideband FILE --fs-in: the CLI channelizes the recording and
     prints the dedup'd result table."""
-    from lte_cell_scanner_tpu.io.itfile import save_it
-    from lte_cell_scanner_tpu.search import cli
+    from lte_cell_scanner.io.itfile import save_it
+    from lte_cell_scanner.search import cli
 
     wide, fs_in = _wide_two_cells()
     path = str(tmp_path / "wide.it")
@@ -81,8 +81,8 @@ def test_wideband_cli(tmp_path, capsys):
 def test_wideband_cli_raw_rtl_sdr(tmp_path, capsys):
     """--wideband-rtl-sdr: a raw uint8 IQ wideband recording (the
     dongle's native file format, no metadata) with --fc-center."""
-    from lte_cell_scanner_tpu.io.raw import iq_to_bytes
-    from lte_cell_scanner_tpu.search import cli
+    from lte_cell_scanner.io.raw import iq_to_bytes
+    from lte_cell_scanner.search import cli
 
     wide, fs_in = _wide_two_cells()
     # Headroom so the two-cell composite survives 8-bit quantization.
@@ -100,8 +100,8 @@ def test_wideband_cli_raw_rtl_sdr(tmp_path, capsys):
 def test_channelize_batch_matches_host():
     """The one-dispatch device channelizer tracks the float64 host
     channelizer (f32 + wrapped-phase rotation) per carrier."""
-    from lte_cell_scanner_tpu.io.frontend import decimate_capture
-    from lte_cell_scanner_tpu.search.wideband import channelize_batch
+    from lte_cell_scanner.io.frontend import decimate_capture
+    from lte_cell_scanner.search.wideband import channelize_batch
 
     wide, fs_in = _wide_two_cells()
     fcs = [739e6 + 2.0e6, 739e6 - 1.5e6, 739e6]
@@ -117,8 +117,8 @@ def test_channelize_batch_matches_host():
 def test_channelize_bank_matches_map():
     """The one-pass filter-bank formulation and the per-carrier lax.map
     baseline are independent device derivations of the same math."""
-    from lte_cell_scanner_tpu.search.wideband import (channelize_batch,
-                                                      channelize_batch_map)
+    from lte_cell_scanner.search.wideband import (channelize_batch,
+                                                  channelize_batch_map)
 
     wide, fs_in = _wide_two_cells()
     fcs = [739e6 + 2.0e6, 739e6 - 1.5e6, 739e6 + 0.7e6]
@@ -134,8 +134,8 @@ def test_channelize_full_band_raster():
     dispatch, with per-carrier parity against the float64 host
     channelizer at sampled carriers (first/center/last and both
     usable-bandwidth edges)."""
-    from lte_cell_scanner_tpu.io.frontend import decimate_capture
-    from lte_cell_scanner_tpu.search.wideband import channelize_batch
+    from lte_cell_scanner.io.frontend import decimate_capture
+    from lte_cell_scanner.search.wideband import channelize_batch
 
     fs_in, fc_center = 30.72e6, 739e6
     fcs = wideband_carriers(fs_in, fc_center, fc_center - 15.36e6,

@@ -2,12 +2,12 @@
 
 import numpy as np
 
-from lte_cell_scanner_tpu.ops.xcorr import xcorr_pss
+from lte_cell_scanner.ops.xcorr import xcorr_pss
 
 
 def _synthetic_capture(n=153600, seed=0, f_off=12e3):
     """Noise + embedded PSS repetitions at a known offset."""
-    from lte_cell_scanner_tpu.models.pss import pss_td
+    from lte_cell_scanner.models.pss import pss_td
 
     rng = np.random.default_rng(seed)
     cap = (rng.standard_normal(n) + 1j * rng.standard_normal(n)) * 0.05
@@ -54,10 +54,10 @@ def test_jax_detects_planted_pss():
 def test_batched_core_matches_single():
     import jax.numpy as jnp
 
-    from lte_cell_scanner_tpu.ops.xcorr import (fold_start_indices,
-                                                shifted_templates)
-    from lte_cell_scanner_tpu.ops.xcorr_jax import (xcorr_pss_core,
-                                                    xcorr_pss_core_batch)
+    from lte_cell_scanner.ops.xcorr import (fold_start_indices,
+                                            shifted_templates)
+    from lte_cell_scanner.ops.xcorr_jax import (xcorr_pss_core,
+                                                xcorr_pss_core_batch)
 
     fset = np.arange(-2, 3) * 5e3
     caps = np.stack([_synthetic_capture(n=76800, seed=s) for s in range(3)])
